@@ -1,4 +1,4 @@
-"""boda_tpu: a TPU-native framework with the capabilities of moskewcz/boda.
+"""boda_tpu: a JAX framework with the capabilities of moskewcz/boda.
 
 Where the reference (see /root/reference, SURVEY.md) generated CUDA/OpenCL at
 runtime from CUCL templates, this framework is JAX-first: Pallas kernel

@@ -376,7 +376,7 @@ class LmdbBench(HasMain):
 @mode("display_lmdb", help="render LMDB datums to a montage image")
 class DisplayLmdb(HasMain):
     """Reference: lmdb_caffe_disp.cc:14 (display datums as they stream);
-    file-backed here (no display stack in a TPU VM): first N datums are
+    file-backed here (no display stack on a headless host): first N datums are
     tiled into one PNG."""
 
     fn = Attr(str, req=True, help="lmdb directory")

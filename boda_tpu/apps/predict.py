@@ -9,7 +9,7 @@ softmax, temporal filtering with show/drop hysteresis), nms_grid_op
 (:407-436: quantized coverage grid, ¾-center-match merge) and
 pred_state_to_annos (:438-501: sort by filtered prob, per-anno label caps).
 
-TPU-era differences: pred_state is vectorized numpy per scale (the
+Differences: pred_state is vectorized numpy per scale (the
 reference's flat vector + triple loop becomes array ops over the feature
 region); the per-pixel image-box map is computed once in closed form from
 the support geometry (graph/support.py) instead of per-pixel box-math

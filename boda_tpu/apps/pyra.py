@@ -4,9 +4,9 @@ Capability parity with the reference's blf_pack.{H,cc} + conv_pyra.cc:
 
   * scale-list generation per octave/interval (pyra_pack_t blf_pack.H:9-31),
   * bottom-left-fill 2-D bin packing of scaled images into fixed
-    GPU/TPU-batch "bins" with support/stride-aware inter-image padding
+    accelerator-batch "bins" with support/stride-aware inter-image padding
     (blf_place, blf_pack.cc ~200-330) — fixed bins keep the XLA program
-    static-shaped across frames, which is the TPU-native payoff,
+    static-shaped across frames, so one compiled program serves them,
   * image scale+pack into the batch tensor with edge-pad interpolation
     (img_pyra_pack_t blf_pack.H:72-84),
   * conv_pyra (conv_pyra.cc:24): pack → forward → per-scale feature

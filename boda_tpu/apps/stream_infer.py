@@ -2,7 +2,7 @@
 
 Capability parity with the reference's net-in-the-loop streaming demos
 (cap_app.cc:254 `capture_classify` / :298 `capture_feats`: camera frames
-→ run_cnet → top-k display). Cameras don't exist in a TPU VM, so the
+→ run_cnet → top-k display). Cameras don't exist on a headless host, so the
 frame source is any image-producing data-stream stage (video-src,
 img-dir-src, lmdb-src, test-gen via data-to-img ...) and the result
 rides the stream: each block gains a named subblock `pred` holding the

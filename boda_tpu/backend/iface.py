@@ -13,7 +13,7 @@ plus host<->device copies (incl. whole-map variants :79-94), profiler hooks,
 and a platform tag used as the wisdom/tuning-record key (get_plat_tag).
 
 Concrete backends (selected polymorphically by `be=`, like the reference's
-NESI factory): `xla` (TPU/CPU via jax — backend/xla.py), `interp` (numpy
+NESI factory): `xla` (GPU/CPU via jax — backend/xla.py), `interp` (numpy
 reference — backend/interp.py), `ipc` (remote worker proxy — backend/ipc.py).
 """
 

@@ -7,12 +7,12 @@ the FULL Backend contract by serializing each verb over a byte stream
 commands (:352-457) against a real inner backend and propagates errors
 back over the wire as (ret, err_str) (:368-380). Worker spawn: fork/exec
 self over a socketpair, arbitrary spawn_str (the reference drove Android
-phones via adb; here e.g. ssh to a TPU VM), or connect to a TCP worker
+phones via adb; here e.g. ssh to a GPU host), or connect to a TCP worker
 (test modes cs_test_master/worker, rtc_ipc.cc:290-330).
 
 Where the reference shipped CUDA source text in `compile`, this protocol
 ships *reduced op signatures* — both sides share the kernel-template
-library, so the signature IS the program (the TPU-native analog).
+library, so the signature IS the program.
 
 Wire format: length-prefixed frames; payload = u32 header_len + lexp-text
 header + raw binary tail (NDA bwrite blobs).
@@ -69,9 +69,9 @@ class IpcBackend(Backend):
                      help="worker launch command (shell-split); %%(addr), "
                           "%%(host), %%(port) expand to the master's TCP "
                           "listener (e.g. 'ssh -R %%(port):127.0.0.1:%%(port)"
-                          " tpu-vm python -m boda_tpu ipc_compute_worker "
+                          " gpu-host python -m boda_tpu ipc_compute_worker "
                           "--boda-parent-addr=tcp:127.0.0.1:%%(port) "
-                          "--rtc=xla' drives a remote TPU VM over a "
+                          "--rtc=xla' drives a remote GPU host over a "
                           "reverse-forwarded port, the reference's "
                           "adb-phone-worker pattern, rtc_ipc.cc:290)")
     worker_be = Attr(str, default="xla", help="inner backend spec for the worker")

@@ -4,7 +4,7 @@ Capability parity with the reference's nda_digest_t (boda_base.H:1051-1073):
 a compact, magnitude-aware summary of a tensor that (a) serializes to a
 stable one-line text form archived in golden test dirs, and (b) compares
 against another digest with a max-relative-difference tolerance
-(`self_cmp_mrd`), so GPU/TPU-vs-reference correctness is testable without
+(`self_cmp_mrd`), so accelerator-vs-reference correctness is testable without
 shipping full tensors.
 """
 

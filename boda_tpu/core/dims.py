@@ -9,7 +9,7 @@ and a type name), used simultaneously as
     they consume; see ops/registry.py),
   * the autotuning / codegen cache key (totally ordered + hashable),
   * sharding metadata: named dims map 1:1 onto jax.sharding PartitionSpec
-    axes (parallel/mesh.py) — the TPU-native payoff of keeping this design.
+    axes (parallel/mesh.py) — the payoff of keeping this design.
 
 Text (lexp) serialization is compatible with the reference's op-sig /wisdom
 syntax: `(tn=float,dims=(img=1,chan=64,y=56,x=56))`, scalars as
@@ -42,7 +42,7 @@ _TN_TO_DTYPE = {
     "int64_t": np.int64,
     "uint64_t": np.uint64,
 }
-try:  # bfloat16 is native on TPU; ml_dtypes ships with jax
+try:  # bfloat16 via ml_dtypes, which ships with jax
     import ml_dtypes
     _TN_TO_DTYPE["bf16"] = ml_dtypes.bfloat16
 except ImportError:  # pragma: no cover

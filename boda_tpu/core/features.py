@@ -16,11 +16,11 @@ from functools import lru_cache
 def is_feature_enabled(name: str) -> bool:
     if name in ("xla", "jax", "pallas"):
         return importlib.util.find_spec("jax") is not None
-    if name == "tpu":
+    if name == "gpu":
+        import jax
         try:
-            import jax
-            return any(d.platform == "tpu" for d in jax.devices())
-        except Exception:
+            return bool(jax.devices("gpu"))
+        except RuntimeError:  # no GPU backend in this process
             return False
     if name == "pil":
         return importlib.util.find_spec("PIL") is not None
@@ -41,6 +41,6 @@ def is_feature_enabled(name: str) -> bool:
 
 
 def enabled_features() -> list[str]:
-    return [f for f in ("xla", "tpu", "pallas", "pil", "lmdb", "protobuf",
+    return [f for f in ("xla", "gpu", "pallas", "pil", "lmdb", "protobuf",
                         "cpp", "zmq", "video")
             if is_feature_enabled(f)]

@@ -114,10 +114,6 @@ def lower_pipe(pipe: ConvPipe, tune: Optional[OpTune] = None,
                     and out_node.in_place_ops[0] is ip:
                 continue  # fused into the conv/deconv step
             steps += _lower_in_place(pipe, ip, train_dropout)
-    if getattr(tune, "fuse_resblock", False):
-        steps = _fuse_resblocks(steps, node_dims, set(output_nodes), tune)
-    if getattr(tune, "fuse_stem", False):
-        steps = _fuse_stem(steps, node_dims, set(output_nodes), tune)
     if getattr(tune, "fuse_siblings", False):
         steps = _fuse_sibling_convs(
             steps, node_dims,
@@ -155,9 +151,8 @@ def _prequant_int8_weights(plan: Plan) -> None:
     """Hoist int8 WEIGHT quantization out of the per-call program: weight
     scales are input-independent (per-out_chan absmax of the weight
     itself), so quantizing on every forward re-reads and re-rounds every
-    quantized filter for nothing — measured as the whole reason the
-    vgg fc6 int8 site lost (103M params re-quantized per call,
-    ROUND3_NOTES session 8). Each quant8 conv step's filts arg is
+    quantized filter for nothing (vgg fc6: 103M params re-quantized per
+    call). Each quant8 conv step's filts arg is
     rewritten to a derived int8 node + an f32 scale-vector node, both
     resolved from op_params at engine init (resolve_plan_weights); the
     templates see prequant_w=1 and skip the in-program weight quant.
@@ -251,8 +246,7 @@ def _apply_int8_edges(plan: Plan) -> None:
     The static-int8 preset's per-site activation quantize is a separate
     bandwidth-bound kernel per site: the producer conv writes the bf16
     activation, a clamp/round/convert pass re-reads and re-writes it as
-    int8, then the consumer conv reads the int8 (measured 2.05 ms of the
-    7.6 ms resnet-50 b128 int8 step — cnet_xprof, ROUND4_NOTES). When
+    int8, then the consumer conv reads the int8. When
     EVERY consumer of a node is a static-scale prequantized-int8 xla_conv
     and its single producer is an xla_conv, the edge itself can be stored
     int8: the producer quantizes in its (already-fused) epilogue
@@ -263,7 +257,7 @@ def _apply_int8_edges(plan: Plan) -> None:
     accumulator, where the replaced per-site pass quantized the
     bf16-ROUNDED stored edge (test_q8_edges_pass_flips_and_guards pins
     the resulting <=0.02 prob delta) — not bit-identical.
-    (TPU-native extension of the reference's per-layer quantize hooks,
+    (An extension of the reference's per-layer quantize hooks,
     rtc_fwd.cc:28-37 — same hook point, opposite goal: theirs emulated
     low precision for accuracy studies, this removes redundant passes.)"""
     prod: dict[str, list[Step]] = {}
@@ -312,9 +306,9 @@ def _fuse_sibling_convs(steps: list[Step], node_dims,
     """Horizontal fusion: up to four conv steps sharing the same input
     node and stride (ResNet stage-boundary projection pairs; googlenet
     inception 1x1 branches) become one `xla_conv2` step whose filters
-    concatenate on out_chan — narrow-N siblings widen onto the MXU lanes
-    and the input streams from HBM once (measured: res2a pair 0.91 ->
-    0.21 ms isolated, b128 bf16). Per-sibling ReLU flags preserved.
+    concatenate on out_chan — narrow-N siblings widen into one GEMM
+    and the input streams from HBM once. Per-sibling ReLU flags
+    preserved.
 
     With `mixed`, kernel sizes may also differ when the embed invariant
     holds — equal (2*pad - kern) per axis — in which case the smaller
@@ -417,156 +411,6 @@ def _fuse_sibling_convs(steps: list[Step], node_dims,
                 sig.str_vals[k] = s.sig.str_vals[k]
         out.append(Step(sig, arg_nodes,
                         "+".join(m.call_tag for m in members)))
-    return out
-
-
-def _fuse_stem(steps: list[Step], node_dims, outputs: set,
-               tune) -> list[Step]:
-    """Fuse [thin-channel conv s2 (+fused ReLU), maxpool s2] into one
-    `fused_stem` step (ops/pallas/stem.py) — the ResNet/VGG stem. The
-    conv activation (the net's largest tensor) then never touches HBM."""
-    uses: dict[str, int] = {}
-    for s in steps:
-        for node in s.arg_nodes.values():
-            uses[node] = uses.get(node, 0) + 1
-    out: list[Step] = []
-    i = 0
-    while i < len(steps):
-        ok = False
-        if i + 1 < len(steps):
-            s1, s2 = steps[i], steps[i + 1]
-            st = s1.sig.get_dims_or_none("stride")
-            pst = s2.sig.get_dims_or_none("stride")
-            ppd = s2.sig.get_dims_or_none("in_pad")
-            fdims = s1.sig.get_dims_or_none("filts")
-            ok = (s1.func_name in ("xla_conv", "s2d_conv", "conv")
-                  and s1.sig.get_u32_or("conv_has_relu", 0) == 1
-                  and st is not None and st["y"] == 2 and st["x"] == 2
-                  and fdims is not None and fdims["in_chan"] <= 4
-                  and s2.func_name == "pool"
-                  and s2.sig.str_vals.get("avg_pool") not in ("1",)
-                  and pst is not None and pst["y"] == 2 and pst["x"] == 2
-                  and (ppd is None or (ppd["y"] == 0 and ppd["x"] == 0))
-                  and s2.arg_nodes["in"] == s1.arg_nodes["out"]
-                  and uses.get(s1.arg_nodes["out"], 0) == 2
-                  and s1.arg_nodes["out"] not in outputs
-                  # per-op quant8/prec overrides don't propagate into the
-                  # fused sig — leave such a stem unfused
-                  and not s1.sig.get_u32_or("quant8", 0)
-                  and s1.sig.str_vals.get("prec", tune.prec) == tune.prec)
-        if ok:
-            s1, s2 = steps[i], steps[i + 1]
-            sig = OpBase({"type": "fused_stem", "func_name": "fused_stem"})
-            sig.set_dims("in", node_dims[s1.arg_nodes["in"]])
-            sig.set_dims("filts", node_dims[s1.arg_nodes["filts"]])
-            arg_nodes = {"in": s1.arg_nodes["in"],
-                         "filts": s1.arg_nodes["filts"],
-                         "out": s2.arg_nodes["out"]}
-            if "biases" in s1.arg_nodes:
-                sig.set_dims("biases", node_dims[s1.arg_nodes["biases"]])
-                arg_nodes["biases"] = s1.arg_nodes["biases"]
-            sig.set_dims("out", node_dims[s2.arg_nodes["out"]])
-            for k in ("in_pad", "stride", "kern_sz"):
-                if k in s1.sig.nda_vals:
-                    sig.nda_vals[k] = s1.sig.nda_vals[k]
-            sig.nda_vals["pool_kern"] = s2.sig.nda_vals["kern_sz"]
-            sig.nda_vals["pool_stride"] = s2.sig.nda_vals["stride"]
-            if "in_pad" in s2.sig.nda_vals:
-                sig.nda_vals["pool_pad"] = s2.sig.nda_vals["in_pad"]
-            sig.set_u32("conv_has_relu", 1)
-            if tune.prec:
-                sig.str_vals["prec"] = tune.prec
-            out.append(Step(sig, arg_nodes, s1.call_tag + "__stem"))
-            i += 2
-        else:
-            out.append(steps[i])
-            i += 1
-    return out
-
-
-def _fuse_resblocks(steps: list[Step], node_dims, outputs: set,
-                    tune) -> list[Step]:
-    """Fuse [conv1x1+relu, conv3x3s1p1+relu, conv1x1, eltwise-add, relu]
-    step runs into one `resblock` step (identity-shortcut bottlenecks;
-    see ops/pallas/resblock.py). Interior nodes must be single-use."""
-    # consumer counts over all steps (interior nodes must only feed the chain)
-    uses: dict[str, int] = {}
-    for s in steps:
-        for a, node in s.arg_nodes.items():
-            uses[node] = uses.get(node, 0) + 1
-
-    def is_conv(s, k, pad, relu):
-        if s.func_name not in ("xla_conv", "conv", "tconv", "k1conv"):
-            return False
-        ks = s.sig.get_dims_or_none("kern_sz")
-        st = s.sig.get_dims_or_none("stride")
-        pd = s.sig.get_dims_or_none("in_pad")
-        if ks is None or ks["y"] != k or ks["x"] != k:
-            return False
-        if st is not None and (st["y"] != 1 or st["x"] != 1):
-            return False
-        if (pd["y"] if pd is not None else 0) != pad:
-            return False
-        return (s.sig.get_u32_or("conv_has_relu", 0) == 1) == relu
-
-    out: list[Step] = []
-    i = 0
-    while i < len(steps):
-        win = steps[i:i + 5]
-        ok = False
-        if len(win) == 5:
-            s1, s2, s3, s4, s5 = win
-            ok = (is_conv(s1, 1, 0, True) and is_conv(s2, 3, 1, True)
-                  and is_conv(s3, 1, 0, False)
-                  and s4.func_name == "eltwise"
-                  and s4.sig.str_vals.get("ew_op", "SUM") == "SUM"
-                  and s5.func_name == "relu"
-                  # per-op quant8/prec overrides (selective-int8 preset,
-                  # wisdom tunes) don't propagate into the fused sig —
-                  # leave such members unfused rather than silently
-                  # running them at the global precision
-                  and not any(s.sig.get_u32_or("quant8", 0)
-                              or s.sig.str_vals.get("prec", tune.prec
-                                                    ) != tune.prec
-                              for s in (s1, s2, s3)))
-            if ok:
-                x = s1.arg_nodes["in"]
-                u, v, w_node = (s1.arg_nodes["out"], s2.arg_nodes["out"],
-                                s3.arg_nodes["out"])
-                ok = (s2.arg_nodes["in"] == u and s3.arg_nodes["in"] == v
-                      and {s4.arg_nodes["a"], s4.arg_nodes["b"]} == {x, w_node}
-                      and s5.arg_nodes["inout"] == s4.arg_nodes["out"]
-                      and node_dims[x].shape == node_dims[s4.arg_nodes["out"]].shape
-                      and all(uses.get(nd, 0) == 2 and nd not in outputs
-                              for nd in (u, v, w_node)))
-                # u/v/w each appear twice: once as producer out, once as input
-        if ok:
-            s1, s2, s3, s4, s5 = win
-            sig = OpBase({"type": "resblock", "func_name": "resblock"})
-            sig.set_dims("in", node_dims[s1.arg_nodes["in"]])
-            sig.set_dims("w1", node_dims[s1.arg_nodes["filts"]])
-            sig.set_dims("b1", node_dims[s1.arg_nodes["biases"]])
-            sig.set_dims("w2", node_dims[s2.arg_nodes["filts"]])
-            sig.set_dims("b2", node_dims[s2.arg_nodes["biases"]])
-            sig.set_dims("w3", node_dims[s3.arg_nodes["filts"]])
-            sig.set_dims("b3", node_dims[s3.arg_nodes["biases"]])
-            sig.set_dims("out", node_dims[s4.arg_nodes["out"]])
-            sig.set_u32("relu_out", 1)
-            if tune.prec:
-                sig.str_vals["prec"] = tune.prec
-            out.append(Step(sig, {"in": s1.arg_nodes["in"],
-                                  "w1": s1.arg_nodes["filts"],
-                                  "b1": s1.arg_nodes["biases"],
-                                  "w2": s2.arg_nodes["filts"],
-                                  "b2": s2.arg_nodes["biases"],
-                                  "w3": s3.arg_nodes["filts"],
-                                  "b3": s3.arg_nodes["biases"],
-                                  "out": s4.arg_nodes["out"]},
-                            s4.call_tag + "__resblock"))
-            i += 5
-        else:
-            out.append(steps[i])
-            i += 1
     return out
 
 

@@ -6,7 +6,7 @@ Extracted from the cnet_stage_probe mode so pipeline parallelism can ride
 the same grouping (VERDICT r3 #6: GPipe over the *imported* pipe, not toy
 stages). Reference context: the reference's conv_pipe had no stage
 notion — its per-op granularity is covered by ops_prof; stage grouping is
-the unit the TPU build uses for ceiling proofs and pp sharding.
+the unit this build uses for ceiling proofs and pp sharding.
 """
 
 from __future__ import annotations
@@ -154,7 +154,7 @@ def build_remat_forward(plan, weights: dict, stages_spec: str):
     Non-trailing coverage gaps are an error. Reference context: the
     reference stored every bck-op input (conv_util.cc:732-800
     add_bck_ops materializes all forward nodes); checkpointing is the
-    TPU-native alternative XLA can't derive on its own."""
+    alternative XLA can't derive on its own."""
     import jax
 
     from .rtc_fwd import _storage_in, _storage_out

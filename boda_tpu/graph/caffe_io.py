@@ -14,7 +14,7 @@ support, no caffe dependency):
   * net surgery: InnerProduct→Convolution (cnet_fc_to_conv :888), conv
     kernel resampling (resize_kernel :677), 2× upsampled-net weight
     synthesis (create_upsamp_layer_weights, caffepb.H:27),
-  * TPU-era addition: BatchNorm+Scale deploy-time folding into the
+  * Addition: BatchNorm+Scale deploy-time folding into the
     preceding Convolution (the reference predates BN-heavy nets; resnet
     prototxts import to conv-only graphs this way).
 

@@ -15,7 +15,7 @@ Capability parity with the reference's conv_util.{H,cc}: a DAG of ConvOp
   * pretty dumps `dump_pipe/dump_ios/dump_ops` (golden-diffed by tests),
   * a weights map `op_params` and single-blob run helpers.
 
-Sharding note (TPU-native): nodes carry named dims; parallel/mesh.py maps
+Sharding note: nodes carry named dims; parallel/mesh.py maps
 dim names (img→data axis, chan/out_chan→model axis) to PartitionSpecs when
 the executor jits the lowered program over a Mesh.
 """

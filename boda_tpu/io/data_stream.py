@@ -14,7 +14,7 @@ an empty block and produce data as a side effect of reading; sinks echo
 their input; xforms transform/filter. An invalid (empty) returned block
 means end-of-stream.
 
-TPU-first additions: a `batch` stage that stacks N blocks into one
+Additions: a `batch` stage that stacks N blocks into one
 device-ready batched nda (the feed path for run_cnet-style engines), and
 `npy-src`/`npy-sink` for zero-copy numpy interchange.
 """
@@ -688,7 +688,7 @@ class SortByTs(DataStream):
 @register(DataStream, "batch",
           help="stack N blocks into one batched nda (device feed path)")
 class Batch(DataStream):
-    """TPU-first stage: builds fixed-size batches for jitted engines —
+    """Builds fixed-size batches for jitted engines —
     static shapes keep XLA from recompiling per step."""
 
     src = Attr(DataStream, req=True)

@@ -59,13 +59,12 @@ def make_device_pyra_pack(pp, bgr: bool = True,
     """Device-side pyramid pack: (in_y,in_x,3) float frame (0-255 RGB) →
     (num_bins, 3, bin_y, bin_x) packed batch, entirely on device.
 
-    TPU-first counterpart of `ImgPyraPack.scale_and_pack_img_into_bins`
+    Device-side counterpart of `ImgPyraPack.scale_and_pack_img_into_bins`
     (the host/PIL parity path, reference conv_pyra.cc:24 img_pyra_pack):
     the host uploads ONE raw frame (~1 MB) and every scale resample, edge
     pad, bin placement, BGR swap, and mean-subtract runs inside the XLA
     program — so it fuses with the net forward under one jit and the
-    streaming rate is device-bound (measured: host pack 87.7 ms/frame vs
-    device fwd 5.8 ms, docs/PERF.md). All shapes/offsets are static (from
+    host does no per-scale resampling. All shapes/offsets are static (from
     the blf placement), so XLA sees pure pad/slice/update ops.
 
     Numerics match the host path's `packed → img_to_chw` composition:

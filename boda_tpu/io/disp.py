@@ -3,7 +3,7 @@
 Capability parity with the reference's viz stack — disp_util.cc (SDL2
 window + annotation overlays, disp_util.H:63-110), font-util.cc
 (stb_truetype text), data-to-img.cc (nda→image heatmaps) — re-targeted at
-files: no SDL in a TPU-VM image, so "display" renders annotated frames /
+files: no SDL on a headless host, so "display" renders annotated frames /
 montages to PNGs (the same annos drive both). Modes `display_test` and
 `display_pil` mirror disp_app.cc:19,48; stream stages `data-to-img` and
 `img-sink` mirror data-to-img.cc and the dumpvideo sink.
@@ -156,7 +156,7 @@ class DisplayPil(HasMain):
 class DisplayRawVid(HasMain):
     """Reference: display-raw-vid (raw-vid-disp.cc:46) — read blocks from
     a data stream and composite their images into a display window at a
-    fixed rate. File-backed here (no SDL window in a TPU VM): one montage
+    fixed rate. File-backed here (no SDL window on a headless host): one montage
     PNG per frame. Images are found, in order of preference, in the
     block's add-img 'img' subblock, its image subblocks, an image-shaped
     nda, or an nda heatmap (the display fallback the reference used for

@@ -2,7 +2,7 @@
 
 Reference parity: os-render.cc (`add-img-pts`, :80-...) rendered lidar
 point clouds through OSMesa GL (orbit camera, ground grid, z-buffered
-point splats) into per-block images. A TPU VM has no GL stack (the same
+point splats) into per-block images. A headless host has no GL stack (the same
 environment constraint that made disp_util PNG-backed), so this is a
 numpy renderer with the same capability surface: orbit camera
 (theta/phi/r around the origin — the reference's cam_rot convention),

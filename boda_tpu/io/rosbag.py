@@ -3,7 +3,7 @@
 Reference parity: data-stream-rosbag.cc (`rosbag-src`) — one block per
 message on selected topics, with sensor_msgs/Image payloads decoded to
 image ndas. The reference linked the ROS C++ stack (ros/rosbag/view);
-a TPU VM has no ROS, so this parses the documented bag v2.0 container
+a headless host has no ROS, so this parses the documented bag v2.0 container
 format directly (http://wiki.ros.org/Bags/Format/2.0):
 
     #ROSBAG V2.0\\n then records of

@@ -3,7 +3,7 @@ classification dataset at any resolution, generated locally.
 
 Reference role: the reference's test fixtures came from downloaded
 ImageNet/PASCAL archives plus generated test-pattern images
-(img_io.cc:163 make_test_pattern); a TPU-VM build has no dataset
+(img_io.cc:163 make_test_pattern); an offline build has no dataset
 downloads, so this module fills the *trainable data* slot the same way
 the test-pattern generator fills the *pixel-format* slot — but with
 real class structure (10 shape classes under random pose/scale/color/

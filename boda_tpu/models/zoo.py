@@ -321,7 +321,7 @@ def _res_block(b: NetBuilder, tag: str, in_node: str, chans: int, stride: int,
 def build_resnet(depth: int = 50, batch: int = 1, ysz: int = 224, xsz: int = 224,
                  num_classes: int = 1000) -> ConvPipe:
     """ResNet-50/101/152 (reference: nets/resnet-50/101/152) — the flagship
-    model for the TPU build's headline benchmark (BASELINE north star)."""
+    model for this build's headline benchmark (BASELINE.md)."""
     blocks = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3), 152: (3, 8, 36, 3)}.get(depth)
     if blocks is None:
         raise RtErr(f"unsupported resnet depth {depth}")

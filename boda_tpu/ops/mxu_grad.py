@@ -1,29 +1,28 @@
-"""Differentiable mixed-precision MXU convolution.
+"""Differentiable mixed-precision convolution.
 
 The inference templates issue bf16 x bf16 -> f32 convs
-(`preferred_element_type=f32`: one-pass MXU multiply, f32 accumulate).
+(`preferred_element_type=f32`: bf16 multiply, f32 accumulate).
 JAX cannot transpose that primitive — the backward conv would pair an
 f32 cotangent with bf16 operands — so `jax.grad` through the fused
-forward fails, and falling back to f32 operands runs at the multi-pass
-HIGHEST-precision rate (~20 TF/s measured vs 155 TF/s bf16 on this
-chip; ops/pallas/sgemm._dot_precision forces that deliberately for f32
-numerics parity).
+forward fails, and falling back to f32 operands runs at the
+HIGHEST-precision f32 rate (ops/precision.dot_precision forces that
+deliberately for f32 numerics parity).
 
 `mxu_conv` keeps the EXACT inference primal (bit-identical HLO when not
 differentiated) and attaches a custom VJP whose gradient convolutions
-are themselves one-pass bf16 convs. The MXU accumulates in f32 in
-hardware regardless of the output element type, so the bf16-output grad
-convs lose only one final rounding — the standard mixed-precision
-training recipe (f32 master weights, bf16 compute).
+are themselves bf16 convs. The tensor cores accumulate in f32 regardless
+of the output element type, so the bf16-output grad convs lose only one
+final rounding — the standard mixed-precision training recipe (f32
+master weights, bf16 compute).
 
 Reference role: the reference framework trained via hand-written
 backward CUCL kernels (BckConv/Spreading, cnn_codegen.cc:480+); here
-the TPU-native path differentiates the lowered program and this module
+the training path differentiates the lowered program and this module
 supplies the mixed-precision derivative rules.
 
 Scope: wired into the conv call sites of xla_conv / xla_conv2 / deconv
 (everything the default `use_culibs=1` training config lowers to). The
-variant templates (ipconv/k1conv/tconv Pallas bodies, sgemm) remain
+variant templates (ipconv/k1conv/conv matmuls, sgemm) remain
 inference-only — training with a tune that selects them raises at
 transpose time rather than silently running slow.
 """
@@ -88,14 +87,14 @@ def mxu_conv(x, w, *, window_strides, padding, dimension_numbers,
 
     Primal: conv(x.astype(cd), w.astype(cd), preferred_element_type=f32)
     — identical to the raw template call. Backward: jax's own transpose
-    of the uniform-dtype conv (all operands `cd`), so on TPU the grad
-    convs run one-pass bf16 with in-hardware f32 accumulation. Returned
+    of the uniform-dtype conv (all operands `cd`), so the grad convs run
+    bf16 with in-hardware f32 accumulation. Returned
     cotangents match the (cast) operand dtypes; the enclosing
     `astype(cd)` casts round-trip them to the caller's dtypes (f32
     master weights stay f32).
 
     wgrad_int8 (OpTune grad_q8): compute the WEIGHT-gradient contraction
-    on the int8 MXU — dynamic per-tensor quantization of the saved
+    in int8 — dynamic per-tensor quantization of the saved
     activation, per-out-channel quantization of the cotangent, int8x
     int8->int32 conv, f32 rescale (the training-side analog of the
     quant8 forward path; the reference profiled its BckConv generators
@@ -108,7 +107,7 @@ def mxu_conv(x, w, *, window_strides, padding, dimension_numbers,
     import jax.numpy as jnp
     from jax import lax
 
-    from .pallas.sgemm import _dot_precision
+    from .precision import dot_precision
 
     cd = jnp.dtype(compute_dtype or jnp.bfloat16)
     kw = dict(window_strides=tuple(window_strides),
@@ -119,7 +118,7 @@ def mxu_conv(x, w, *, window_strides, padding, dimension_numbers,
         kw["lhs_dilation"] = tuple(lhs_dilation)
     if rhs_dilation is not None:
         kw["rhs_dilation"] = tuple(rhs_dilation)
-    prec = _dot_precision(cd)
+    prec = dot_precision(cd)
     wgrad_int8 = bool(
         wgrad_int8
         and dimension_numbers == ("NHWC", "HWIO", "NHWC")
@@ -148,8 +147,8 @@ def mxu_conv(x, w, *, window_strides, padding, dimension_numbers,
         # <= 100k terms — all within bound)
         q8_ok = wgrad_int8 and (
             g.shape[0] * g.shape[1] * g.shape[2] * 127 * 127 < 2 ** 31)
-        # uniform-dtype conv: transposable by jax; on TPU its grad convs
-        # are one-pass bf16 (f32 hardware accumulate, one final rounding)
+        # uniform-dtype conv: transposable by jax; its grad convs are
+        # bf16 (f32 hardware accumulate, one final rounding)
         if not q8_ok:
             _, vjp = jax.vjp(
                 lambda a, b: lax.conv_general_dilated(a, b, precision=prec,
@@ -180,7 +179,7 @@ def _wgrad_q8(xc, wc, g, window_strides, padding):
     padding rule). Quantization: per-tensor dynamic scale for the saved
     activation, per-out-channel scale for the cotangent (each dW column
     O rescales independently — gradients' dynamic range lives across
-    output channels); int8×int8→int32 on the MXU, one f32 rescale."""
+    output channels); int8×int8→int32, one f32 rescale."""
     import jax.numpy as jnp
     from jax import lax
 

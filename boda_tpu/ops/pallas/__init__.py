@@ -1,7 +1,7 @@
 """Pallas kernel-template library.
 
-The TPU-native equivalent of the reference's 53 CUCL templates in test/rtc/
-(SURVEY.md §2.2): MXU-tiled matmul and conv variants, layout transforms,
+The JAX equivalent of the reference's 53 CUCL templates in test/rtc/
+(SURVEY.md §2.2): matmul and conv variants, layout transforms,
 elementwise/reduction/normalization ops, deterministic test-pattern
 generators, stats/quantize instrumentation, and backward ops.
 """

@@ -2,7 +2,7 @@
 Spreading.cucl, bck_lrn.cucl, BckDropout; synthesized into the graph by
 add_bck_ops, conv_util.cc:732-800).
 
-The reference hand-wrote each gradient kernel; the TPU-native design derives
+The reference hand-wrote each gradient kernel; this design derives
 device gradients with jax.vjp over the forward builders (exact, fused by
 XLA) while keeping independent numpy reference implementations so the
 cross-backend digest tests still compare two *independent* derivations.
@@ -53,14 +53,14 @@ class BckConv(KernelTemplate):
         import jax.numpy as jnp
         sy, sx, py, px = _bck_conv_params(rfs)
 
-        from .sgemm import _dot_precision
+        from ..precision import dot_precision
 
         def fwd(x, w):
             return jax.lax.conv_general_dilated(
                 x, w, window_strides=(sy, sx), padding=((py, py), (px, px)),
                 dimension_numbers=("NCHW", "OIHW", "NCHW"),
                 preferred_element_type=jnp.float32,
-                precision=_dot_precision(x.dtype))
+                precision=dot_precision(x.dtype))
 
         def fn(x, w, og):
             _y, vjp = jax.vjp(fwd, x, w)

@@ -2,16 +2,16 @@
 
 Reference parity: test/rtc/bwai.cucl (the reference's raw memory-bandwidth
 probe, profiled via ops_prof like any other op) and the mxplusb smoke
-kernel family. TPU-native roles:
+kernel family. Roles:
 
   op=copy   — out[i] = in[i]: HBM read+write streaming rate
-  op=scale  — out[i] = in[i]*a + b: adds VPU work to the stream (mxplusb)
+  op=scale  — out[i] = in[i]*a + b: adds ALU work to the stream (mxplusb)
   op=read   — out[0] = sum(in): read-only rate (the reduce defeats DCE)
 
 Timed through ops_prof's chained slope methodology these give the honest
-achievable HBM rates that whole-net roofline analysis needs (measured on
-this chip: XLA streams ~1 TB/s; see ROUND2_NOTES "The fused-storage
-pass"). Keeping it as a KernelTemplate means the same sweep/wisdom/digest
+achievable HBM rates that whole-net roofline analysis needs (not
+measured on the GPU yet). Keeping it as a KernelTemplate means the same
+sweep/wisdom/digest
 machinery covers it.
 """
 

@@ -6,13 +6,12 @@ inner-product, *_simd flavors) generated by cnn_codegen.cc:165-828 and
 selected per shape+tune by cnn_op.cc:46-68, with the cuDNN path
 (culibs-wrap.cc `cudnn_conv`) as comparison baseline.
 
-TPU mapping:
+Mapping:
   * `xla_conv`  — lax.conv_general_dilated under jit: the vendor-library
-    baseline (cuDNN role): correctness reference and perf target.
-  * `k1conv`    — 1×1 stride-1 conv lowered to the Pallas MXU matmul
-    (pixels × in_chan) @ (in_chan × out_chan), bias+ReLU fused in-kernel.
-  * `conv`      — direct conv as shifted-window matmul accumulation over
-    (ky,kx) with the Pallas matmul core (im2col-free for stride 1).
+    path (cuDNN): correctness reference and perf target.
+  * `k1conv`    — 1×1 conv lowered to the matmul
+    (pixels × in_chan) @ (in_chan × out_chan), bias+ReLU fused after it.
+  * `conv`      — im2col over the (ky,kx) taps + one matmul.
   * `ipconv`    — InnerProduct (FC): plain matmul with bias+ReLU fusion.
 
 All templates carry the fusion flag `conv_has_relu` in their reduced
@@ -28,8 +27,7 @@ import numpy as np
 from ...core.dims import Dims
 from ..op_base import OpBase
 from ..registry import IN, OUT, KernelTemplate, adecl, template
-from ..tile import solve_matmul_tiles
-from .sgemm import _dot_precision, build_matmul_ext
+from .sgemm import matmul_epilogue
 
 
 def conv_params(rfs: OpBase):
@@ -76,7 +74,7 @@ class _ConvBase(KernelTemplate):
             adecl("filts_scale", IN, "out_chan", opt=True),
             adecl("biases", IN, "out_chan", opt=True),
             adecl("out", OUT, "img chan y x")]
-    sig_nda_keys = ["in_pad", "stride", "kern_sz", "conv_has_relu", "work",
+    sig_nda_keys = ["in_pad", "stride", "kern_sz", "conv_has_relu",
                     "quant8", "act_scale", "prequant_w",
                     "in_q8", "out_q8", "out_scale", "grad_q8"]
     sig_str_keys = ["prec", "layout"]
@@ -206,7 +204,7 @@ class XlaConv(_ConvBase):
             def fn_st(x, w, b=None):
                 wh = jnp.transpose(w, (2, 3, 1, 0))
                 if quant8:
-                    # int8 MXU path: dynamic act quant + per-oc weight quant
+                    # int8 path: dynamic act quant + per-oc weight quant
                     xq, wq, sc = _quantize_conv_operands(x, wh, (0, 1, 2), act_absmax)
                     y = jax.lax.conv_general_dilated(
                         xq, wq, window_strides=(sy, sx),
@@ -267,7 +265,7 @@ class XlaConv(_ConvBase):
             from ..mxu_grad import mxu_conv
             cdt = jnp.bfloat16 if bf16 else jnp.float32
             if nhwc:
-                # feature-minor is the fast TPU conv layout; the wrapping
+                # channel-minor is cuDNN's tensor-core layout; the wrapping
                 # transposes cancel pairwise inside the fused program
                 xh = jnp.transpose(x, (0, 2, 3, 1))
                 wh = jnp.transpose(w, (2, 3, 1, 0))
@@ -302,14 +300,13 @@ class S2dConv(_ConvBase):
     (ResNet/VGG conv1: 7x7 s2 C=3) re-indexed as a stride-1 conv over
     2x2-phase-stacked input (C -> 4C, kernel k -> ceil(k/2)).
 
-    Thin-channel convs waste the MXU (K = 3·k² after im2col, lanes mostly
-    idle); phase-stacking quadruples K and halves spatial extent — the
-    standard TPU first-layer transform. Exact same arithmetic as the
+    Thin-channel convs underfill the matrix units (K = 3·k² after
+    im2col); phase-stacking quadruples K and halves spatial extent — a
+    standard first-layer transform. Exact same arithmetic as the
     original conv (weights re-indexed by tap parity, zero-padded to the
     per-phase kernel), pinned by an exactness test vs xla_conv.
     Reference role: a cnn_codegen conv variant selected by shape
-    (cnn_op.cc:46-68 gating idiom); no CUDA analog — this one is
-    TPU-motivated."""
+    (cnn_op.cc:46-68 gating idiom); no CUDA analog."""
 
     name = "s2d_conv"
     nhwc_ok = True
@@ -361,8 +358,7 @@ class S2dConv(_ConvBase):
             # mxu_conv (not raw conv_general_dilated): the custom VJP
             # makes the s2d stem TRAINABLE — phase-stack/re-index are
             # plain differentiable jnp ops, and the grad convs of the
-            # stacked form ARE the s2d training form (stem-s2d wgrad
-            # measured 71.5 vs 37.1 TF/s, scripts/wgrad_probe.py).
+            # stacked form ARE the s2d training form.
             from ..mxu_grad import mxu_conv, relu_store
             y = mxu_conv(
                 xh, wh, window_strides=(1, 1), padding=((0, 0), (0, 0)),
@@ -382,8 +378,8 @@ class S2dConv(_ConvBase):
 
 @template
 class K1Conv(_ConvBase):
-    """1×1 stride-1 conv as Pallas MXU matmul (reference: k1conv.cucl):
-    (img·y·x, in_chan) @ (in_chan, out_chan), bias+ReLU fused in-kernel."""
+    """1×1 conv as a matmul (reference: k1conv.cucl):
+    (img·y·x, in_chan) @ (in_chan, out_chan), bias+ReLU fused after it."""
 
     name = "k1conv"
     nhwc_ok = True
@@ -399,18 +395,11 @@ class K1Conv(_ConvBase):
         oc = fd["out_chan"]
         oy, ox = outd["y"], outd["x"]
         M, K, N = n * oy * ox, C, oc
-        w = rfs.get_dims_or_none("work")
         dt = "bfloat16" if rfs.str_vals.get("prec") == "bf16" else "float32"
-        tiles = solve_matmul_tiles(M, N, K, dt,
-                                   Mb=w.get("Mb", 0) if w else 0,
-                                   Nb=w.get("Nb", 0) if w else 0,
-                                   Kb=w.get("Kb", 0) if w else 0)
         has_bias = "biases" in rfs.nda_vals
         io_nhwc, edt = storage_io(rfs)
         odt = str(edt and jnp.dtype(edt) or outd.dtype) if io_nhwc else str(outd.dtype)
-        mm = build_matmul_ext(M, N, K, tiles, in_dtype=dt,
-                              out_dtype=odt, relu=relu,
-                              bias=has_bias)
+        mm = matmul_epilogue(dt, odt, relu=relu, bias=has_bias)
 
         def fn(x, filts, b=None):
             if io_nhwc:
@@ -434,7 +423,7 @@ class Conv(_ConvBase):
     """Direct conv as shifted-window matmul accumulation (reference:
     conv.cucl). For each (ky,kx) filter tap, a strided window of the padded
     NHWC input becomes an (img·oy·ox, in_chan) matrix multiplied against
-    that tap's (in_chan, out_chan) filter slice on the MXU; taps accumulate
+    that tap's (in_chan, out_chan) filter slice; taps accumulate
     in f32. Stride-1 taps are pure slices (no im2col materialization)."""
 
     name = "conv"
@@ -450,18 +439,11 @@ class Conv(_ConvBase):
         oc, ic, ky, kx = fd["out_chan"], fd["in_chan"], fd["y"], fd["x"]
         oy, ox = outd["y"], outd["x"]
         M, K, N = n * oy * ox, C * ky * kx, oc
-        w = rfs.get_dims_or_none("work")
         dt = "bfloat16" if rfs.str_vals.get("prec") == "bf16" else "float32"
-        tiles = solve_matmul_tiles(M, N, K, dt,
-                                   Mb=w.get("Mb", 0) if w else 0,
-                                   Nb=w.get("Nb", 0) if w else 0,
-                                   Kb=w.get("Kb", 0) if w else 0)
         has_bias = "biases" in rfs.nda_vals
         io_nhwc, edt = storage_io(rfs)
         odt = str(edt and jnp.dtype(edt) or outd.dtype) if io_nhwc else str(outd.dtype)
-        mm = build_matmul_ext(M, N, K, tiles, in_dtype=dt,
-                              out_dtype=odt, relu=relu,
-                              bias=has_bias)
+        mm = matmul_epilogue(dt, odt, relu=relu, bias=has_bias)
 
         def fn(x, filts, b=None):
             if io_nhwc:
@@ -503,17 +485,10 @@ class IpConv(_ConvBase):
         assert outd["y"] == 1 and outd["x"] == 1, "ipconv requires 1x1 output"
         M, K, N = n, C * H * W, oc
         dt = "bfloat16" if rfs.str_vals.get("prec") == "bf16" else "float32"
-        w = rfs.get_dims_or_none("work")
-        tiles = solve_matmul_tiles(M, N, K, dt,
-                                   Mb=w.get("Mb", 0) if w else 0,
-                                   Nb=w.get("Nb", 0) if w else 0,
-                                   Kb=w.get("Kb", 0) if w else 0)
         has_bias = "biases" in rfs.nda_vals
         io_nhwc, edt = storage_io(rfs)
         odt = str(edt and jnp.dtype(edt) or outd.dtype) if io_nhwc else str(outd.dtype)
-        mm = build_matmul_ext(M, N, K, tiles, in_dtype=dt,
-                              out_dtype=odt, relu=relu,
-                              bias=has_bias)
+        mm = matmul_epilogue(dt, odt, relu=relu, bias=has_bias)
 
         def fn(x, filts, b=None):
             a = x.reshape(M, K)
@@ -539,7 +514,7 @@ class Deconv(_ConvBase):
     to the caffe_fwd engine). Here it is a first-class template: the
     gradient-of-conv scatter, computed as an XLA convolution over the
     lhs-dilated input with a spatially-flipped kernel (lax lhs_dilation —
-    the MXU-friendly form; no explicit zero-stuffed tensor materializes).
+    no explicit zero-stuffed tensor materializes).
 
     Filts arrive in the pipe convention (out_chan, in_chan, y, x) where
     out_chan is this layer's OUTPUT channel count — the caffemodel's

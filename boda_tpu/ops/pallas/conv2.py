@@ -1,6 +1,6 @@
 """xla_conv2: horizontally-fused sibling convolutions.
 
-TPU-motivated variant (no CUDA analog; the reference's closest idea is
+An addition (no CUDA analog; the reference's closest idea is
 the k1conv write-xpose chaining, rtc_fwd.cc:495-503): two convolutions
 that share the SAME input and stride — the branch1 projection +
 branch2a reduce pair at every ResNet stage boundary, googlenet
@@ -8,10 +8,10 @@ inception 1x1 trios, squeezenet fire expand1x1+expand3x3 pairs — run
 as ONE conv whose filters are concatenated on out_chan, then split.
 Kernel sizes may differ when (2*pad - kern) matches per axis: the
 smaller kernel is zero-padded to the center of the group max (exact
-arithmetic — a 1x1 pad-0 conv IS a 3x3 pad-1 conv with one live tap). Why it wins on the MXU: the siblings' N dims are narrow
-(64/256 at res2a) and each standalone conv re-reads the full input from
-HBM; fused, N widens to the lane width and the input streams once
-(measured b128 res2a pair: 0.91 -> 0.21 ms isolated).
+arithmetic — a 1x1 pad-0 conv IS a 3x3 pad-1 conv with one live tap).
+Why it can win: the siblings' N dims are narrow (64/256 at res2a) and
+each standalone conv re-reads the full input from HBM; fused, N widens
+and the input streams once.
 
 Per-sibling ReLU flags are preserved (branch1 has no ReLU, branch2a
 does). Selected by the `fuse_siblings` lowering pass (engine/lower.py),

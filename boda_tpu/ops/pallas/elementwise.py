@@ -240,7 +240,7 @@ class Dropout(KernelTemplate):
     # stochastic regularization; caffe redraws the mask per iteration,
     # dropout_layer.cpp). The seeded form computes the mask IN-GRAPH
     # from a fed step counter: 32-bit murmur3-fmix on (index, seed) —
-    # uint32 only (TPU has no u64), with an exact numpy twin for the
+    # uint32 only (no u64 arithmetic needed), with an exact numpy twin for the
     # ref engine. Gated on the optional 'seed' arg so every existing
     # static-mask signature (and its goldens) is untouched.
     _FMIX = (2654435761, 0x9E3779B9, 0x85EB_CA6B, 0xC2B2_AE35)

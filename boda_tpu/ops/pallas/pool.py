@@ -19,10 +19,8 @@ def _max_pool_first_match(fn, ind, oy, ox, ky, kx, sy, sx, py, px,
                           extra_y, extra_x, nhwc: bool):
     """Wrap a max-pool primal `fn` with a gather-form custom VJP.
 
-    Motivation: XLA's native max-pool transpose is SelectAndScatter,
-    measured 2.33 ms for resnet-50's pool1 at b128 on this chip — 56% of
-    the whole stem fwd+bwd floor (docs/PERF.md training floor table).
-    This VJP computes the same gradient with no scatters: per window, the
+    Motivation: XLA's native max-pool transpose is SelectAndScatter, a
+    scatter. This VJP computes the same gradient with no scatters: per window, the
     FIRST (row-major window-scan) position equal to the max gets the
     cotangent — caffe max-pool backward semantics (one winner per window,
     first argmax; reference pooling backward in cnn_codegen's Spreading
@@ -32,11 +30,8 @@ def _max_pool_first_match(fn, ind, oy, ox, ky, kx, sy, sx, py, px,
     contributions from stride-dilated (lax.pad interior) cotangent/index
     arrays — k*k fused elementwise terms, stride-1 slices only.
 
-    MEASURED NEGATIVE on TPU (scripts/poolbwd_probe.py, pool1 b128 bf16
-    nhwc): gather form 21.1 ms vs SelectAndScatter 2.34 ms — the k*k
-    full-size elementwise passes cost ~9x what the "slow" scatter does
-    (S&S lowers well on this chip; the CPU pin that motivated shipping it
-    measured the opposite order). So the wrap is OPT-IN via the
+    The k*k full-size elementwise passes can cost more than the scatter
+    (not measured on the GPU), so the wrap is OPT-IN via the
     pool_bwd=gather annotation (OpTune pool_bwd_gather); the default
     backward stays XLA's SelectAndScatter. Kept as a capability: the
     semantics pin (first-argmax == S&S GE-select, test_pool_grad.py)

@@ -1,12 +1,11 @@
-"""int8 quantized matmul: the TPU-native extension of the reference's
-fixed-point quantization investigation (quantize.cucl + per-layer
-quantize hooks, rtc_fwd.cc:28-37; doc/quant_notes.txt).
+"""int8 quantized matmul: the extension of the reference's fixed-point
+quantization investigation (quantize.cucl + per-layer quantize hooks,
+rtc_fwd.cc:28-37; doc/quant_notes.txt).
 
 The reference quantized activations to explore reduced-precision error;
-on TPU the MXU natively runs int8 x int8 -> int32 at ~2x bf16 throughput,
-so the capability becomes a real kernel: symmetric max-abs per-tensor
-quantization of both operands, int8 MXU dots with i32 accumulation, f32
-dequantization epilogue (pallas guide: quantization-kernel pattern).
+here the capability is a real int8 matmul: symmetric max-abs per-tensor
+quantization of both operands, an int8 x int8 -> int32 dot (which XLA
+hands to cuBLASLt on the GPU), and an f32 dequantization epilogue.
 Selected via OpTune(prec=int8) on sgemm-shaped ops.
 """
 
@@ -16,7 +15,6 @@ import numpy as np
 
 from ..op_base import OpBase
 from ..registry import IN, OUT, KernelTemplate, adecl, template
-from ..tile import solve_matmul_tiles
 from .sgemm import _mnk
 
 
@@ -30,13 +28,12 @@ def _quant_sym(v, dtype=np.int8):
 
 @template
 class SgemmInt8(KernelTemplate):
-    """C = dequant(quant8(A) @ quant8(B)): int8 MXU matmul with on-the-fly
+    """C = dequant(quant8(A) @ quant8(B)): int8 matmul with on-the-fly
     symmetric quantization of f32 inputs."""
 
     name = "sgemm_int8"
     args = [adecl("a", IN, "M K"), adecl("b", IN, "K N"),
             adecl("c", OUT, "M N")]
-    sig_nda_keys = ["work"]
 
     @classmethod
     def flops(cls, rfs: OpBase) -> int:
@@ -48,82 +45,19 @@ class SgemmInt8(KernelTemplate):
         import jax
         import jax.numpy as jnp
 
-        from .util import pallas_call, pallas_mode
-
-        M, N, K = _mnk(rfs)
-
         def qsym(v):
             amax = jnp.maximum(jnp.abs(v).max(), 1e-30)
             scale = amax / 127.0
             q = jnp.clip(jnp.round(v / scale), -127, 127).astype(jnp.int8)
             return q, scale.astype(jnp.float32)
 
-        if pallas_mode() == "fallback":
-            def fb(a, b):
-                qa, sa = qsym(a)
-                qb, sb = qsym(b)
-                acc = jax.lax.dot_general(
-                    qa, qb, (((1,), (0,)), ((), ())),
-                    preferred_element_type=jnp.int32)
-                return acc.astype(jnp.float32) * (sa * sb)
-            return fb
-
-        from jax.experimental import pallas as pl
-        from jax.experimental.pallas import tpu as pltpu
-
-        w = rfs.get_dims_or_none("work")
-        tiles = solve_matmul_tiles(M, N, K, "int8",
-                                   Mb=w.get("Mb", 0) if w else 0,
-                                   Nb=w.get("Nb", 0) if w else 0,
-                                   Kb=w.get("Kb", 0) if w else 0)
-        Mb, Nb, Kb = tiles.Mb, tiles.Nb, tiles.Kb
-        Mp, Np, Kp = tiles.Mp, tiles.Np, tiles.Kp
-        nk = Kp // Kb
-
-        def kern(a_ref, b_ref, s_ref, o_ref, acc_ref):
-            k = pl.program_id(2)
-
-            @pl.when(k == 0)
-            def _zero():
-                acc_ref[:] = jnp.zeros_like(acc_ref)
-
-            acc_ref[:] += jax.lax.dot_general(
-                a_ref[:], b_ref[:], (((1,), (0,)), ((), ())),
-                preferred_element_type=jnp.int32)
-
-            @pl.when(k == nk - 1)
-            def _done():
-                o_ref[:] = acc_ref[:].astype(jnp.float32) * s_ref[0, 0]
-
-        grid = (Mp // Mb, Np // Nb, nk)
-        call = pallas_call(
-            kern,
-            grid=grid,
-            in_specs=[pl.BlockSpec((Mb, Kb), lambda i, j, k: (i, k)),
-                      pl.BlockSpec((Kb, Nb), lambda i, j, k: (k, j)),
-                      pl.BlockSpec((1, 1), lambda i, j, k: (0, 0),
-                                   memory_space=pltpu.SMEM)],
-            out_specs=pl.BlockSpec((Mb, Nb), lambda i, j, k: (i, j)),
-            out_shape=jax.ShapeDtypeStruct((Mp, Np), np.float32),
-            scratch_shapes=[pltpu.VMEM((Mb, Nb), jnp.int32)],
-            compiler_params=pltpu.CompilerParams(
-                dimension_semantics=("parallel", "parallel", "arbitrary")),
-            cost_estimate=pl.CostEstimate(
-                flops=2 * Mp * Np * Kp,
-                bytes_accessed=Mp * Kp + Kp * Np + 4 * Mp * Np,
-                transcendentals=0),
-        )
-
         def fn(a, b):
             qa, sa = qsym(a)
             qb, sb = qsym(b)
-            if (Mp, Kp) != (M, K):
-                qa = jnp.pad(qa, ((0, Mp - M), (0, Kp - K)))
-            if (Kp, Np) != (K, N):
-                qb = jnp.pad(qb, ((0, Kp - K), (0, Np - N)))
-            s = (sa * sb).reshape(1, 1)
-            c = call(qa, qb, s)
-            return c[:M, :N]
+            acc = jax.lax.dot_general(
+                qa, qb, (((1,), (0,)), ((), ())),
+                preferred_element_type=jnp.int32)
+            return acc.astype(jnp.float32) * (sa * sb)
         return fn
 
     @classmethod

@@ -1,27 +1,23 @@
-"""SGEMM kernel templates: MXU-tiled Pallas matmul + XLA vendor baseline.
+"""SGEMM kernel template: the matmul that XLA hands to cuBLAS.
 
 Reference parity: the sgemm CUCL family (test/rtc/sgemm.cucl — register-tiled
-Mg:Ng:Mb:Nb:Kb:Mt:Nt blocking; variants sgemm_no_local/simd/simd_local) and
-the cuBLAS comparison path (culibs-wrap.cc `cublas_sgemm`). On TPU the
-blocking story collapses to Pallas block shapes over the 128×128 MXU with a
-VMEM f32 accumulator; `xla_sgemm` (plain jnp.dot under jit) plays the
-vendor-library role: correctness reference and perf target.
+Mg:Ng:Mb:Nb:Kb:Mt:Nt blocking) and the cuBLAS comparison path
+(culibs-wrap.cc `cublas_sgemm`). A hand-blocked Pallas (Triton-route)
+version lost end to end on the H100 (PERF.md), so the matmul is plain
+`jnp.dot` under jit and the vendor library does the blocking.
 
 Tunables (kept in the reduced signature, so tuned instances cache separately):
-  work=(tn=none,dims=(Mb=…,Nb=…,Kb=…))  — block shapes
-  prec=bf16                              — cast inputs to bf16 (f32 accumulate)
+  prec=bf16  — cast inputs to bf16 (f32 accumulate)
 """
 
 from __future__ import annotations
-
-import functools
 
 import numpy as np
 
 from ...core.dims import Dims
 from ..op_base import OpBase
+from ..precision import dot_precision
 from ..registry import IN, OUT, KernelTemplate, adecl, template
-from ..tile import solve_matmul_tiles
 
 
 def _mnk(rfs: OpBase) -> tuple[int, int, int]:
@@ -30,189 +26,34 @@ def _mnk(rfs: OpBase) -> tuple[int, int, int]:
     return a["M"], b["N"], a["K"]
 
 
-def _tiles(rfs: OpBase):
-    M, N, K = _mnk(rfs)
-    w = rfs.get_dims_or_none("work")
-    dt = "bfloat16" if rfs.str_vals.get("prec") == "bf16" else "float32"
-    return solve_matmul_tiles(
-        M, N, K, dt,
-        Mb=w.get("Mb", 0) if w else 0,
-        Nb=w.get("Nb", 0) if w else 0,
-        Kb=w.get("Kb", 0) if w else 0)
-
-
-def _dot_precision(dtype):
-    """f32 inputs demand full f32 MXU precision (multi-pass bf16); bf16
-    inputs use the fast single-pass default. Without this, 'float32' kernels
-    silently run at bf16 precision on TPU — the explicit-precision-control
-    requirement called out in SURVEY.md §7 hard parts."""
-    import jax
-    return (jax.lax.Precision.HIGHEST if str(dtype) in ("float32", "float64")
-            else jax.lax.Precision.DEFAULT)
-
-
-def _matmul_kernel(a_ref, b_ref, o_ref, acc_ref, *, nk: int):
+def matmul_epilogue(in_dtype="float32", out_dtype="float32",
+                    relu: bool = False, bias: bool = False):
+    """f(a[M,K], b[K,N][, bias[N]]) -> c[M,N]: `in_dtype` operands, f32
+    accumulation, fused bias + ReLU epilogue (the reference's
+    store-with-bias+ReLU fusion, cnn_codegen.cc stores), one store in
+    `out_dtype`."""
     import jax.numpy as jnp
-    from jax.experimental import pallas as pl
-
-    k = pl.program_id(2)
-
-    @pl.when(k == 0)
-    def _():
-        acc_ref[:] = jnp.zeros_like(acc_ref)
-
-    acc_ref[:] += jnp.dot(a_ref[:], b_ref[:], preferred_element_type=jnp.float32,
-                          precision=_dot_precision(a_ref.dtype))
-
-    @pl.when(k == nk - 1)
-    def _():
-        o_ref[:] = acc_ref[:].astype(o_ref.dtype)
-
-
-def _matmul_bias_kernel(a_ref, b_ref, bias_ref, o_ref, acc_ref, *, nk: int,
-                        relu: bool):
-    """Matmul with fused bias-add (+ optional ReLU) epilogue — the TPU analog
-    of the reference's store-with-bias+ReLU-fusion (cnn_codegen.cc stores)."""
-    import jax.numpy as jnp
-    from jax.experimental import pallas as pl
-
-    k = pl.program_id(2)
-
-    @pl.when(k == 0)
-    def _():
-        acc_ref[:] = jnp.zeros_like(acc_ref)
-
-    acc_ref[:] += jnp.dot(a_ref[:], b_ref[:], preferred_element_type=jnp.float32,
-                          precision=_dot_precision(a_ref.dtype))
-
-    @pl.when(k == nk - 1)
-    def _():
-        r = acc_ref[:] + bias_ref[:].astype(jnp.float32)
-        if relu:
-            r = jnp.maximum(r, 0)
-        o_ref[:] = r.astype(o_ref.dtype)
-
-
-def _matmul_relu_kernel(a_ref, b_ref, o_ref, acc_ref, *, nk: int):
-    import jax.numpy as jnp
-    from jax.experimental import pallas as pl
-
-    k = pl.program_id(2)
-
-    @pl.when(k == 0)
-    def _():
-        acc_ref[:] = jnp.zeros_like(acc_ref)
-
-    acc_ref[:] += jnp.dot(a_ref[:], b_ref[:], preferred_element_type=jnp.float32,
-                          precision=_dot_precision(a_ref.dtype))
-
-    @pl.when(k == nk - 1)
-    def _():
-        o_ref[:] = jnp.maximum(acc_ref[:], 0).astype(o_ref.dtype)
-
-
-def build_matmul_ext(M: int, N: int, K: int, tiles, in_dtype="float32",
-                     out_dtype="float32", relu: bool = False,
-                     bias: bool = False):
-    """Pallas matmul with optional fused bias[N] + ReLU epilogue.
-
-    Returns f(a[M,K], b[K,N][, bias[N]]) -> c[M,N].
-    """
-    import jax
-    import jax.numpy as jnp
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    from .util import pallas_call, pallas_mode
-
-    if pallas_mode() == "fallback":
-        # off-TPU whole-net path: semantically-identical fused jnp matmul
-        def fb(a, b, bias_vec=None):
-            if str(a.dtype) != str(in_dtype):
-                a = a.astype(in_dtype)
-                b = b.astype(in_dtype)
-            c = jnp.dot(a, b, preferred_element_type=jnp.float32,
-                        precision=_dot_precision(a.dtype))
-            if bias and bias_vec is not None:
-                c = c + bias_vec.reshape(1, N).astype(jnp.float32)
-            if relu:
-                c = jnp.maximum(c, 0)
-            return c.astype(out_dtype)
-        return fb
-
-    Mb, Nb, Kb = tiles.Mb, tiles.Nb, tiles.Kb
-    Mp, Np, Kp = tiles.Mp, tiles.Np, tiles.Kp
-    nk = Kp // Kb
-    grid = (Mp // Mb, Np // Nb, nk)
-    cost = pl.CostEstimate(
-        flops=2 * Mp * Np * Kp,
-        bytes_accessed=(Mp * Kp + Kp * Np) * np.dtype(in_dtype).itemsize
-                       + Mp * Np * np.dtype(out_dtype).itemsize,
-        transcendentals=0)
-    cparams = pltpu.CompilerParams(
-        dimension_semantics=("parallel", "parallel", "arbitrary"))
-    a_spec = pl.BlockSpec((Mb, Kb), lambda i, j, k: (i, k))
-    b_spec = pl.BlockSpec((Kb, Nb), lambda i, j, k: (k, j))
-    o_spec = pl.BlockSpec((Mb, Nb), lambda i, j, k: (i, j))
-    scratch = [pltpu.VMEM((Mb, Nb), jnp.float32)]
-    out_shape = jax.ShapeDtypeStruct((Mp, Np), np.dtype(out_dtype))
-
-    if bias:
-        bias_spec = pl.BlockSpec((1, Nb), lambda i, j, k: (0, j))
-        inner = pallas_call(
-            functools.partial(_matmul_bias_kernel, nk=nk, relu=relu),
-            grid=grid, in_specs=[a_spec, b_spec, bias_spec],
-            out_specs=o_spec, out_shape=out_shape, scratch_shapes=scratch,
-            compiler_params=cparams, cost_estimate=cost)
-    elif relu:
-        inner = pallas_call(
-            functools.partial(_matmul_relu_kernel, nk=nk),
-            grid=grid, in_specs=[a_spec, b_spec],
-            out_specs=o_spec, out_shape=out_shape, scratch_shapes=scratch,
-            compiler_params=cparams, cost_estimate=cost)
-    else:
-        inner = pallas_call(
-            functools.partial(_matmul_kernel, nk=nk),
-            grid=grid, in_specs=[a_spec, b_spec],
-            out_specs=o_spec, out_shape=out_shape, scratch_shapes=scratch,
-            compiler_params=cparams, cost_estimate=cost)
 
     def fn(a, b, bias_vec=None):
-        if str(a.dtype) != str(in_dtype):
-            a = a.astype(in_dtype)
-            b = b.astype(in_dtype)
-        if (Mp, Kp) != (M, K):
-            a = jnp.pad(a, ((0, Mp - M), (0, Kp - K)))
-        if (Kp, Np) != (K, N):
-            b = jnp.pad(b, ((0, Kp - K), (0, Np - N)))
-        if bias:
-            bv = bias_vec.reshape(1, N).astype(jnp.float32)
-            if Np != N:
-                bv = jnp.pad(bv, ((0, 0), (0, Np - N)))
-            c = inner(a, b, bv)
-        else:
-            c = inner(a, b)
-        if (Mp, Np) != (M, N):
-            c = c[:M, :N]
-        return c
-
+        a = a.astype(in_dtype)
+        b = b.astype(in_dtype)
+        c = jnp.dot(a, b, preferred_element_type=jnp.float32,
+                    precision=dot_precision(a.dtype))
+        if bias and bias_vec is not None:
+            c = c + bias_vec.reshape(1, -1).astype(jnp.float32)
+        if relu:
+            c = jnp.maximum(c, 0)
+        return c.astype(out_dtype)
     return fn
-
-
-def build_matmul(M: int, N: int, K: int, tiles, in_dtype="float32",
-                 out_dtype="float32", relu: bool = False):
-    """Build a jittable f(a[M,K], b[K,N]) -> c[M,N] Pallas matmul."""
-    return build_matmul_ext(M, N, K, tiles, in_dtype=in_dtype,
-                            out_dtype=out_dtype, relu=relu, bias=False)
 
 
 @template
 class Sgemm(KernelTemplate):
-    """MXU-tiled Pallas SGEMM (reference: sgemm.cucl family)."""
+    """Vendor-library matmul (reference: sgemm.cucl family, culibs-wrap
+    cublas_sgemm): stock jnp.dot under jit."""
 
     name = "sgemm"
     args = [adecl("a", IN, "M K"), adecl("b", IN, "K N"), adecl("c", OUT, "M N")]
-    sig_nda_keys = ["work"]
     sig_str_keys = ["prec"]
 
     @classmethod
@@ -222,45 +63,9 @@ class Sgemm(KernelTemplate):
 
     @classmethod
     def build(cls, rfs: OpBase):
-        M, N, K = _mnk(rfs)
-        tiles = _tiles(rfs)
-        in_dt = "bfloat16" if rfs.str_vals.get("prec") == "bf16" else str(rfs.get_dims("a").dtype)
-        out_dt = str(rfs.get_dims("c").dtype)
-        return build_matmul(M, N, K, tiles, in_dtype=in_dt, out_dtype=out_dt)
-
-    @classmethod
-    def ref_impl(cls, rfs: OpBase, a, b):
-        return np.asarray(a, np.float64) @ np.asarray(b, np.float64)
-
-
-@template
-class XlaSgemm(KernelTemplate):
-    """Vendor-library baseline (reference role: culibs-wrap cublas_sgemm):
-    stock jnp.dot under jit — the number Pallas sgemm is tuned against."""
-
-    name = "xla_sgemm"
-    args = [adecl("a", IN, "M K"), adecl("b", IN, "K N"), adecl("c", OUT, "M N")]
-    sig_str_keys = ["prec"]
-
-    @classmethod
-    def flops(cls, rfs: OpBase) -> int:
-        M, N, K = _mnk(rfs)
-        return 2 * M * N * K
-
-    @classmethod
-    def build(cls, rfs: OpBase):
-        import jax.numpy as jnp
-        bf16 = rfs.str_vals.get("prec") == "bf16"
-        out_dt = rfs.get_dims("c").dtype
-
-        def fn(a, b):
-            if bf16:
-                a = a.astype(jnp.bfloat16)
-                b = b.astype(jnp.bfloat16)
-            return jnp.dot(a, b, preferred_element_type=jnp.float32,
-                           precision=_dot_precision(a.dtype)).astype(out_dt)
-
-        return fn
+        in_dt = "bfloat16" if rfs.str_vals.get("prec") == "bf16" \
+            else str(rfs.get_dims("a").dtype)
+        return matmul_epilogue(in_dt, str(rfs.get_dims("c").dtype))
 
     @classmethod
     def ref_impl(cls, rfs: OpBase, a, b):

@@ -3,7 +3,7 @@
 Reference parity: the transposer CUCL family (xpose_filts.cucl,
 *_xpose_* in/out transposers) auto-inserted by rtc_fwd when a variant's
 declared arg dims differ from the graph var's dims (rtc_fwd.cc:305-329).
-On TPU these lower to XLA transpose/reshape, which the compiler fuses or
+Here these lower to XLA transpose/reshape, which the compiler fuses or
 lays out directly; the capability kept here is the *declared-dims→actual-
 dims mismatch detection and transform insertion*, which lives in the
 executor — these templates are its lowering targets.

@@ -1,7 +1,7 @@
-"""Device-mesh parallelism: the TPU-native answer to SURVEY.md §2.8.
+"""Device-mesh parallelism: the answer to SURVEY.md §2.8.
 
 The reference is single-device (one rtc_compute_t; its only distribution is
-the host-RPC `ipc` backend, rtc_ipc.cc). The TPU build scales the same
+the host-RPC `ipc` backend, rtc_ipc.cc). This build scales the same
 workloads over a jax.sharding.Mesh instead:
 
   * data parallel  — the `img` named dim shards over the 'dp' mesh axis,

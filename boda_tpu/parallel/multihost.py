@@ -1,11 +1,11 @@
 """True multi-host execution: jax.distributed over N processes.
 
-SURVEY.md §2.8's TPU-native plan names two distribution channels: (a)
+SURVEY.md §2.8's plan names two distribution channels: (a)
 device-device XLA collectives over a sharded mesh (parallel/mesh.py) and
 (b) the host-control RPC channel (backend/ipc.py). This module adds the
 multi-HOST form of (a): `jax.distributed.initialize` joins N processes
-(TPU pod slices connected over DCN, or — for "multi-node without a
-cluster" testing, SURVEY §4.7 — local CPU processes with gloo
+(hosts of a cluster, or — for "multi-node without a cluster" testing,
+SURVEY §4.7 — local CPU processes with gloo
 cross-process collectives) into one global device mesh; GSPMD then
 shards programs over every host's devices exactly as it does single-host
 (mesh.py's named-dims → PartitionSpec tables are reused unchanged).
@@ -72,9 +72,10 @@ def free_port() -> int:
     return p
 
 
-@mode("mh_test", help="multi-host self-check: N jax.distributed "
-                      "processes run one sharded forward; rank 0 "
-                      "spawns the others and verifies digests agree")
+@mode("mh_test", help="CPU-only multi-process self-check: N "
+                      "jax.distributed processes, each on virtual CPU "
+                      "devices, run one sharded forward; rank 0 spawns "
+                      "the others and verifies digests agree")
 class MhTest(HasMain):
     coordinator = Attr(str, default="",
                        help="host:port of the jax.distributed "

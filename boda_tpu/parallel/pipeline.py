@@ -2,10 +2,10 @@
 axis.
 
 The reference is single-device (SURVEY §2.8 marks PP "not required for
-parity; optional for large nets"); this is the TPU-native optional layer:
+parity; optional for large nets"); this is that optional layer:
 stage s of a K-stage network lives on device s of the pp axis (stage
 params stacked on a leading dim and sharded over pp), activations flow
-stage-to-stage with `lax.ppermute` over ICI, and a `lax.scan` over
+stage-to-stage with `lax.ppermute` between devices, and a `lax.scan` over
 M + K - 1 ticks drives the classic pipeline fill/steady/drain schedule —
 compiler-friendly control flow, no data-dependent Python.
 
@@ -115,8 +115,8 @@ def gpipe_plan_forward(plan, segments, weights: dict, x_mb, mesh,
     returns        (M, *out_storage_shape) storage-form outputs of the
                    last segment (replicated)
 
-    Design, TPU-first: activations cross stage boundaries through ONE
-    flat pad-to-max f32 ring riding `lax.ppermute` over ICI (bf16/f32
+    Design: activations cross stage boundaries through ONE
+    flat pad-to-max f32 ring riding `lax.ppermute` between devices (bf16/f32
     boundary values upcast losslessly into the carrier); each device runs
     its stage via `lax.switch` on the pp axis index — all K stage
     programs compile into the single SPMD executable, one executes per
@@ -362,7 +362,7 @@ def plan_train_step_1f1b(plan, segments, weights: dict, x_mb, labels_mb,
     bounded by its warmup depth (≤ K slots) instead of growing with the
     microbatch count (GPipe saves all M + K - 1 tick inputs).
 
-    TPU-first mechanics: `sched_1f1b` emits STATIC (K, T) action/
+    Mechanics: `sched_1f1b` emits STATIC (K, T) action/
     microbatch tables (plus derived ring-receive tables), so the whole
     interleaved schedule is one `lax.scan` whose tick body switches on
     the table entry — fwd ticks run the stage via `lax.switch` and

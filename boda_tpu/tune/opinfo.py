@@ -3,7 +3,7 @@
 Capability parity with cnn-prof.cc:25-131 (mode cnn_op_info): for each op
 in an op-sig file, report FLOPs, bytes, arithmetic intensity, and — with
 --run=1 — measured time, achieved FLOP/s, and % of peak (peak_flops
-defaulting to the current device's MXU peak rather than the reference's
+defaulting to the current device's published peak rather than the reference's
 hardcoded TITAN X 6.6 TF/s, cnn-prof.cc:36), optionally cross-checked
 against a comparison tune (cuDNN role → use_culibs tune).
 """
@@ -31,16 +31,15 @@ def op_bytes(rfs) -> int:
 def default_peak_flops(prec: str = "bf16") -> float:
     # single definition site: core/machine.py
     from ..core.machine import current_device_kind, peak_flops
-    return peak_flops(current_device_kind(), prec if prec in
-                      ("bf16", "f32", "int8") else "f32")
+    return peak_flops(current_device_kind(), prec)
 
 
 def op_prec(sig, tune_prec: str = "") -> str:
     """The precision an annotated op sig actually computes in: int8 when
     the quant8 path is selected, else its prec annotation (falling back
     to the tune's), defaulting bf16. Used to score each op against ITS
-    OWN precision peak (VERDICT r4 #5: '76.8% of roofline' against the
-    bf16 peak reads near-roofline while the int8-peak view is ~38%)."""
+    OWN precision peak (an int8 op scored against the bf16 peak reads
+    twice as close to the roof as it is)."""
     if sig.get_u32_or("quant8", 0):
         return "int8"
     p = sig.str_vals.get("prec") or tune_prec or "bf16"
@@ -109,16 +108,17 @@ class CnnOpInfo(HasMain):
             by = op_bytes(rfs)
             # %peak is against the op's OWN precision peak (int8 sites
             # score vs the int8 peak); explicit --peak-flops overrides
-            op_pk = self.peak_flops or default_peak_flops(
-                op_prec(rfs, self.op_tune.prec))
             line = (f"{str(op.to_compact_lexp())[:58]:58s} {top.func_name:12s} "
                     f"{fl / 1e6:10.1f} {by / 1e6:8.2f} {fl / max(by, 1):7.1f}")
             secs_gfs = None
+            op_pk = 0.0
             if self.run:
                 try:
                     secs, outs = profile_rcg_call(cg, top, self.run_iter)
                     gfs = fl / secs / 1e9 if secs > 0 else 0.0
                     secs_gfs = (secs, gfs)
+                    op_pk = self.peak_flops or default_peak_flops(
+                        op_prec(rfs, self.op_tune.prec))
                     line += f" {secs:11.3e} {gfs:9.1f} {100 * gfs * 1e9 / op_pk:6.2f}"
                     if self.comp_tune is not None:
                         cop = op.copy()

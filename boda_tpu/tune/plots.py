@@ -37,9 +37,8 @@ class RooflinePlot(HasMain):
     op_tune = Attr(OpTune, default="()")
     peak_flops = Attr(float, default=0.0)
     hbm_gbps = Attr(float, default=0.0,
-                    help="HBM bandwidth GB/s (0=auto from core/machine.py: "
-                         "the MEASURED streaming rate, ~1400 on this chip, "
-                         "not the 819 v5e spec)")
+                    help="HBM bandwidth GB/s (0=auto: the device's "
+                         "published peak from core/machine.py)")
     run = Attr(bool, default=False, help="run ops to place achieved points "
                                          "(else plot AI positions on the roof)")
     run_iter = Attr(int, default=5)
@@ -53,8 +52,8 @@ class RooflinePlot(HasMain):
         if self.hbm_gbps:
             bw = self.hbm_gbps * 1e9
         else:
-            from ..core.machine import machine_model
-            bw = machine_model(prec=self.op_tune.prec or "bf16").hbm_bw
+            from ..core.machine import current_device_kind, hbm_bw
+            bw = hbm_bw(current_device_kind())
         ais, gfs, labels = [], [], []
         cg = None
         if self.run:

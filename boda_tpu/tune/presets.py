@@ -2,8 +2,9 @@
 
 The reference carried per-op tuning knowledge in wisdom files; net-level
 selective-precision site sets have no reference analog (quantization
-there was a per-layer fixed-point experiment, rtc_fwd.cc:28-37) — these
-are r3 ON-CHIP measurements (ROUND3_NOTES.md "Selective int8").
+there was a per-layer fixed-point experiment, rtc_fwd.cc:28-37). The site
+sets were chosen by sweeps on an earlier accelerator; on the GPU they are
+not measured yet (PERF.md).
 """
 
 from __future__ import annotations
@@ -12,19 +13,16 @@ import re
 
 from ..ops.cnn_variants import OpTune, make_op_tune
 
-# ResNet-family selective int8: the b128 sweep (13 configs) found int8
-# pays on the K=9C 3x3 contractions of stages 3-5 AND on every stage-4/5
-# conv (N>=256), while stage-2 (Cm=64) and stage-3 1x1s lose:
-#   bf16 8.73 ms | all-3x3 8.01 | s3-5 3x3 7.61 | s3 3x3 + s4-5 all 7.33
+# ResNet-family selective int8: the K=9C 3x3 contractions of stage 3 and
+# every stage-4/5 conv (N>=256); stage-2 (Cm=64) and stage-3 1x1s stay
+# bf16
 RESNET_INT8_SITE_PATS = (r"res3[a-z0-9]*_branch2b",
                          r"res[45][a-z0-9]*_branch.*")
 
-# TRAINING int8-wgrad site set (r5, scripts/wgrad_int8_probe.py on-chip):
-# the 3x3 grad contractions of stages 3-5 win at int8 (0.59-0.81x time;
-# s5 3x3 hits 328 TF/s, ABOVE the bf16 peak) and the s5 1x1->2048
-# expansion wins 0.86x; every other 1x1 wgrad and all of stage-2 LOSE —
-# the quantize passes (full read+write of activation and cotangent) only
-# amortize where the contraction has >=9 taps or >=2048-wide products.
+# TRAINING int8-wgrad site set: the 3x3 grad contractions of stages 3-5
+# and the s5 1x1->2048 expansion — the quantize passes (full read+write
+# of activation and cotangent) only amortize where the contraction has
+# >=9 taps or >=2048-wide products.
 RESNET_GRAD_Q8_SITE_PATS = (r"res[345][a-z0-9]*_branch2b",
                             r"res5[a-z0-9]*_branch2c")
 
@@ -57,7 +55,7 @@ def calibrate_int8_act_scales(pipe, base_tune_spec: str, x,
     input x (logical NCHW), read each quantized site's INPUT-node absmax,
     and return per-site tunes carrying act_scale — the quant8 kernels
     then skip the per-call dynamic activation-max reduction. (The
-    TPU-native analog of the reference's per-layer max_val quantize spec,
+    analog of the reference's per-layer max_val quantize spec,
     rtc_fwd.cc:28-37, which also took calibrated ranges from outside.)"""
     import copy
 
@@ -82,7 +80,7 @@ def calibrate_int8_act_scales(pipe, base_tune_spec: str, x,
             raise RtErr(f"calibrate_int8_act_scales: input node '{in_node}'"
                         f" of site '{tag}' not in the forward's kept values"
                         " (calibrate with a base tune whose fusion passes"
-                        " keep it, e.g. without fuse_resblock/fuse_stem)")
+                        " keep it)")
         v = np.asarray(vals[in_node])
         # OpTune objects are plain attrs — shallow-copy and set the scale
         t2 = copy.copy(tune)

@@ -22,8 +22,30 @@ import numpy as np
 _LIB_NAMES = ("libboda_tpu_core.so",)
 
 
+def _build(root: Path) -> None:
+    """`make -C csrc` (tracked sources -> build/), once per checkout: a file
+    lock keeps concurrent first users (test workers) from racing."""
+    import fcntl
+    import shutil
+    import subprocess
+    if shutil.which("make") is None:
+        return
+    (root / "build").mkdir(exist_ok=True)
+    with open(root / "build" / ".lock", "w") as lk:
+        fcntl.flock(lk, fcntl.LOCK_EX)
+        if (root / "build" / _LIB_NAMES[0]).exists():
+            return
+        try:
+            subprocess.run(["make", "-C", str(root / "csrc")], check=True,
+                           capture_output=True, timeout=300)
+        except (OSError, subprocess.SubprocessError):
+            pass  # no compiler: the pure-Python paths serve
+
+
 @lru_cache(maxsize=1)
 def load_cpp() -> Optional[ctypes.CDLL]:
+    """The native library, built from csrc/ at first use; None when it
+    cannot be built or loaded."""
     root = Path(__file__).resolve().parents[2]
     # explicit override (used by scripts/ci_sanitize.sh to load the
     # ASan/UBSan-instrumented build)
@@ -32,17 +54,17 @@ def load_cpp() -> Optional[ctypes.CDLL]:
         lib = ctypes.CDLL(override)  # let a bad override fail loudly
         _declare(lib)
         return lib
-    for sub in ("build", "csrc/build", "."):
-        for name in _LIB_NAMES:
-            p = root / sub / name
-            if p.exists():
-                try:
-                    lib = ctypes.CDLL(str(p))
-                except OSError:
-                    return None
-                _declare(lib)
-                return lib
-    return None
+    p = root / "build" / _LIB_NAMES[0]
+    if not p.exists():
+        _build(root)
+    if not p.exists():
+        return None
+    try:
+        lib = ctypes.CDLL(str(p))
+    except OSError:
+        return None
+    _declare(lib)
+    return lib
 
 
 def cpp_available() -> bool:

@@ -3,7 +3,7 @@
 Produced the shipped tests/data/*-int8-scales.lexp files (r3) and the
 trained-weights resnet50-shapes40 scales (r4). Runs a float forward on
 CPU over a calibration input and records each quantized site's input
-absmax (tune/presets.calibrate_int8_act_scales — the TPU-native analog
+absmax (tune/presets.calibrate_int8_act_scales — the analog
 of the reference's externally-supplied per-layer max_val quantize
 ranges, rtc_fwd.cc:28-37).
 

@@ -79,7 +79,7 @@ def test_sgemm_both_backends():
     a = rng.randn(M, K).astype(np.float32)
     b = rng.randn(K, N).astype(np.float32)
     results = {}
-    for bname, fname in (("xla", "sgemm"), ("xla", "xla_sgemm"), ("interp", "sgemm")):
+    for bname, fname in (("xla", "sgemm"), ("interp", "sgemm")):
         be = make_backend(bname)
         be.init()
         cg = Codegen(be)
@@ -95,14 +95,14 @@ def test_sgemm_both_backends():
         np.testing.assert_allclose(got, want, rtol=2e-5, atol=1e-4, err_msg=str(k))
 
 
-def test_sgemm_tuned_work_dims():
-    """Explicit work dims flow through the reduced sig → distinct instance."""
+def test_sgemm_tuned_prec():
+    """A tuned prec flows through the reduced sig → distinct instance."""
     be = make_backend("xla")
     be.init()
     cg = Codegen(be)
     op = make_sgemm_op(128, 128, 128)
     op2 = op.copy()
-    op2.set_dims("work", Dims.make(tn="none", Mb=128, Nb=128, Kb=128))
+    op2.str_vals["prec"] = "bf16"
     assert cg.gen_func(op) != cg.gen_func(op2)
 
 

@@ -1,5 +1,5 @@
-"""xla_conv2 sibling-conv horizontal fusion (the ResNet projection-pair
-MXU-lane win; no reference analog — TPU-motivated, measured on-chip)."""
+"""xla_conv2 sibling-conv horizontal fusion (the ResNet projection pair
+run as one wide conv; no reference analog)."""
 
 import numpy as np
 import pytest
@@ -87,7 +87,7 @@ def test_fuse_siblings_mixed_kernel_fire_pairs():
     """squeezenet fire expand1x1 (pad0) + expand3x3 (pad1) share the
     squeeze output and satisfy the embed invariant (2p-k == -1): they
     fuse into one 3x3 conv with the 1x1 weights center-embedded —
-    only under fuse_mixed_siblings (measured LOSS on-chip, default off)."""
+    only under fuse_mixed_siblings (default off)."""
     pipe = build_model("squeezenet-1.0", batch=1, ysz=64, xsz=64)
     # default fuse_siblings: exact-kernel key -> fire expand pairs stay split
     p0 = lower_pipe(pipe, make_op_tune("(use_culibs=1,fuse_siblings=1,s2d=0)"))

@@ -108,18 +108,17 @@ def test_variant_gate_routes_deconv():
 
 def test_annotations_reset_between_tunes():
     """ADVICE r2 (medium): re-annotating one op graph with a different tune
-    must not inherit stale layout/prec/work/quant8 from the previous tune."""
+    must not inherit stale layout/prec/quant8 from the previous tune."""
     from boda_tpu.ops.pallas.conv import make_conv_op
     op = make_conv_op(1, 32, 14, 14, 64, 3, 3, 1, 1, 1, 1)
     add_cnn_codegen_annotations(
-        op, make_op_tune("(use_culibs=1,layout=nhwc,prec=bf16,Mb=256,quant8=1)"))
+        op, make_op_tune("(use_culibs=1,layout=nhwc,prec=bf16,quant8=1)"))
     assert op.str_vals.get("layout") == "nhwc"
     assert op.str_vals.get("prec") == "bf16"
-    assert "work" in op.nda_vals and "quant8" in op.nda_vals
+    assert "quant8" in op.nda_vals
     add_cnn_codegen_annotations(op, make_op_tune("(use_culibs=1)"))
     assert "layout" not in op.str_vals
     assert "prec" not in op.str_vals
-    assert "work" not in op.nda_vals
     assert "quant8" not in op.nda_vals
 
 

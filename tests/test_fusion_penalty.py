@@ -151,9 +151,10 @@ def test_site_records_round_trip_and_merge(tmp_path):
 
 
 def test_shipped_wisdom_carries_net_rows():
-    """The checked-in resnet-50 b32 wisdom now contains on-chip @net rows
-    (fusion_penalty run, r3): the tune index must refuse the standalone
-    hand-kernel winners for every sig that was measured in-net."""
+    """The checked-in resnet-50 b32 wisdom fixture contains @net rows
+    (a fusion_penalty run, recorded under its platform tag): the tune
+    index must refuse the standalone hand-kernel winners for every sig
+    that was measured in-net."""
     ws = read_wisdom_file(Path(__file__).parent / "data"
                           / "wisdom-resnet50-b32.wis")
     plat = "xla:tpu:TPU v5 lite"

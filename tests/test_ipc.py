@@ -117,7 +117,7 @@ def test_rtc_test_over_ipc(capsys):
 def test_ipc_tcp_remote_worker():
     """TCP transport end-to-end: worker listens (the manual-launch /
     remote-machine workflow, rtc_ipc.cc:98-140 print-command path), master
-    connects by address — the 'drive a remote TPU host' pattern."""
+    connects by address — the 'drive a remote GPU host' pattern."""
     import random
     import subprocess
     import sys

@@ -32,7 +32,7 @@ def test_wis_plot(tmp_path, capsys):
         op.set_u32("M", n)
         w = OpWisdom(op)
         tw = w.tune("(Mb=128)")
-        tw.add_run("tpu:v5e", 1e-4 * n)
+        tw.add_run("xla:gpu", 1e-4 * n)
         tw.add_run("cpu:interp", 1e-2 * n)
         ws.append(w)
     fn = tmp_path / "t.wis"

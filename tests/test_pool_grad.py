@@ -1,10 +1,8 @@
 """Max-pool backward (ops/pallas/pool._max_pool_first_match).
 
-XLA's native max-pool transpose is SelectAndScatter — 2.33 ms for
-resnet-50's pool1 at b128 on the TPU, 56% of the stem's whole fwd+bwd
-floor (docs/PERF.md training floor table) — so the pool template carries
-an alternative gather-form custom VJP. On-chip it measured 9x SLOWER
-(21.1 ms, scripts/poolbwd_probe.py), so it is OPT-IN via the
+XLA's native max-pool transpose is SelectAndScatter, a scatter, so the
+pool template carries an alternative gather-form custom VJP. It is
+OPT-IN via the
 pool_bwd=gather annotation (OpTune pool_bwd_gather) and the default
 backward stays SelectAndScatter. These tests pin:
 

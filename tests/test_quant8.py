@@ -1,7 +1,7 @@
 """int8 conv execution path (OpTune quant8=1): dynamic per-tensor
 activation + per-out_chan weight quantization inside each conv.
 Reference role: the fixed-point quantize hooks (rtc_fwd.cc:28-37)
-extended to actual int8 MXU execution."""
+extended to actual int8 execution."""
 
 import numpy as np
 import pytest
@@ -67,10 +67,9 @@ def test_quant8_whole_net_top1_agrees(storage):
 
 
 def test_selective_quant8_3x3_top1_agrees():
-    """The shipped headline config (r3): int8 on the 3x3 convs only
-    (branch2b sites — K=9C contractions quantize well and run faster on
-    the MXU; 1x1s and the thin-channel stem stay float). Measured on-chip:
-    8.73 -> 8.01 ms (57.5% -> 62.6% roofline). Accuracy pinned here."""
+    """int8 on the 3x3 convs only (branch2b sites — K=9C contractions
+    quantize well; 1x1s and the thin-channel stem stay float). Accuracy
+    pinned here."""
     # micro net with wide-enough 3x3 convs to pass the quant8 channel gate
     from boda_tpu.models.zoo import NetBuilder
     b = NetBuilder("q3net", 2, 3, 32, 32)
@@ -287,9 +286,8 @@ def test_fused_siblings_carry_act_scale():
                  marks=pytest.mark.slow),
 ])
 def test_shipped_static_int8_site_sets_track_float(model, pats, sz):
-    """The session-8 shipped static-int8 configs (googlenet 4.09 ms /
-    nin 1.34 ms / alexnet 3.57 ms, docs/PERF.md) must track the float
-    path on their exact site sets — same validation shape as the
+    """The static-int8 configs of googlenet / nin / alexnet must track the
+    float path on their exact site sets — same validation shape as the
     resnet test above, calibrated inline at test size."""
     import re
     from boda_tpu.models.zoo import build_model
@@ -379,10 +377,10 @@ def test_int8_preset_top5_on_trained_weights():
     crc32 weights at 64^2). The checked-in snapshot was trained by
     cnet_train (SGD+momentum, fixup init, grad clipping) to 94.5% val
     top-1 on the 40-class shapes set; act scales were re-calibrated on
-    the trained weights (scripts/calibrate_int8.py). Full 640-image
-    on-chip run (2026-08-19): bf16 94.53% / int8 94.84% top-1,
-    top-1 agreement 99.69%, int8-top1 in bf16-top5 100%, top-5 overlap
-    98.5%. Default loop: one held-out batch; BODA_RUN_SLOW covers 64.
+    the trained weights (scripts/calibrate_int8.py). A full 640-image
+    run gave bf16 94.53% / int8 94.84% top-1, top-1 agreement 99.69%,
+    int8-top1 in bf16-top5 100%, top-5 overlap 98.5%. Default loop: one
+    held-out batch; BODA_RUN_SLOW covers 64.
     Reference bar: ground-truth digest comparison on real model runs
     (test_compute.cc:267-269, comp_util.H:13)."""
     s = _trained_gate(num_imgs=8, batch=8)
@@ -399,7 +397,7 @@ def test_int8_preset_top5_on_trained_weights():
 @pytest.mark.slow
 def test_int8_preset_top5_on_trained_weights_64imgs():
     """The 64-image version of the trained-weights gate (pre-ship loop);
-    thresholds set from the 640-image on-chip run (see above)."""
+    thresholds set from the 640-image run (see above)."""
     s = _trained_gate(num_imgs=64, batch=8)
     assert s["num_test"] == 64
     assert s["top_1_acc_a"] >= 0.90 and s["top_1_acc_b"] >= 0.90, s
@@ -414,7 +412,7 @@ def test_q8_edges_pass_flips_and_guards():
     """int8 storage edges (engine/lower._apply_int8_edges): a node whose
     only reader is a static-scale prequant int8 conv flips (producer
     out_q8 + reader in_q8); dynamic-scale readers and plan outputs must
-    NOT flip. (TPU-native extension of the reference's per-layer quantize
+    NOT flip. (An extension of the reference's per-layer quantize
     hook point, rtc_fwd.cc:28-37.)"""
     from boda_tpu.models.zoo import build_model
     from boda_tpu.tune.presets import calibrate_int8_act_scales

@@ -3,7 +3,7 @@
 lowering numerically.
 
 Reference role: the rtc-vs-ref comp_util digest workflow (SURVEY §4) —
-here specialized to the TPU-first storage optimization: layout and edge
+here specialized to the storage optimization: layout and edge
 dtype are execution-time tune knobs, never semantic changes.
 """
 

@@ -463,8 +463,8 @@ class TestLrPolicy:
 @pytest.mark.slow
 class TestLearnsHeldOut:
     def test_mini_trains_to_heldout_accuracy(self, tmp_path, capsys):
-        """CPU-reproducible accuracy evidence (the TPU 640-image gates
-        need a chip; this doesn't): the full solver stack — momentum,
+        """CPU-reproducible accuracy evidence (the 640-image gates need
+        an accelerator; this doesn't): the full solver stack — momentum,
         warmup, clipping, per-step dropout masks, device_data staging,
         inference-lowered eval — trains mini on procedural shapes to
         >=4x chance held-out top-1 (observed 0.535 at 1600 steps)."""
@@ -489,7 +489,7 @@ class TestGooglenetTrainedArtifact:
     """Second-topology training proof (VERDICT r4 #6): googlenet_conv
     (concat VJPs, per-step seeded dropout, no residuals/BN) trained by
     cnet_train on 40-class shapes at 224^2 (r4 resnet recipe + caffe's
-    weight_decay=0.0002) to 94.7% 640-image held-out top-1 on-chip
+    weight_decay=0.0002) to 94.7% 640-image held-out top-1
     (peak 95.0% @ step 5000; pre-dropout-fix runs stalled at 38.4%).
     Artifact: tests/data/googlenet-shapes40.boda."""
 
@@ -521,7 +521,7 @@ class TestGooglenetTrainedArtifact:
         """CPU-reproducible accuracy gate on the trained googlenet:
         16 held-out shapes (the training eval split: seed=0,
         start_ix=100000) at native 224^2 through the fused engine,
-        >= 13/16 top-1 (chance = 1/40; on-chip 640-image eval: 94.7%;
+        >= 13/16 top-1 (chance = 1/40; 640-image eval: 94.7%;
         observed here: 14/16 — the two misses are the semantically
         adjacent pairs square->diamond and striped_disk->disk+stripes)."""
         from boda_tpu.apps.train import load_weights_into_pipe
